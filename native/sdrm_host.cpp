@@ -1,8 +1,8 @@
-// sdrm_host — native host-side runtime for sdrmodem_tpu.
+// sdrm_host — native host-side runtime for sdrmodem.
 //
 // The reference implements its hot host loops in C with libvolk
 // (type conversions, src/sdr/plutosdr.c:63-133) and hand-rolled
-// pthread queues (src/queue.c).  On the TPU build the device does the
+// pthread queues (src/queue.c).  In this build the device does the
 // math, but the host ingest/egress path still moves and converts
 // megabytes per second; this library provides those pieces natively:
 //

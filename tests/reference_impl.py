@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from sdrmodem_tpu.dsp import taps as taps_mod
+from sdrmodem.dsp import taps as taps_mod
 
 
 class RefFir:

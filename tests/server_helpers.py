@@ -14,7 +14,7 @@ import struct
 
 import numpy as np
 
-from sdrmodem_tpu.server import wire
+from sdrmodem.server import wire
 
 _SS_HEADER = struct.Struct(">BB")
 _SS_REQUEST = struct.Struct(">IIIB")

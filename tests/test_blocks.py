@@ -11,16 +11,16 @@ import pytest
 
 import jax.numpy as jnp
 
-from sdrmodem_tpu.dsp import taps as T
-from sdrmodem_tpu.dsp.clock_recovery import clock_mm_stream, mm_params
-from sdrmodem_tpu.dsp.elementwise import (
+from sdrmodem.dsp import taps as T
+from sdrmodem.dsp.clock_recovery import clock_mm_stream, mm_params
+from sdrmodem.dsp.elementwise import (
     dc_blocker_stream,
     fast_atan2,
     freq_mod_stream,
     nco_stream,
     quad_demod_stream,
 )
-from sdrmodem_tpu.dsp.fir import fir_stream, interp_fir_stream
+from sdrmodem.dsp.fir import fir_stream, interp_fir_stream
 
 from tests import reference_impl as R
 
@@ -186,7 +186,7 @@ def test_nco_negative_freq():
 
 def test_fast_atan2_free_matches_lut():
     """Gather-free LUT evaluation tracks the table LUT to float32 noise."""
-    from sdrmodem_tpu.dsp.elementwise import fast_atan2_free
+    from sdrmodem.dsp.elementwise import fast_atan2_free
 
     y = np.concatenate(
         [RNG.standard_normal(5000), [0.0, 1.0, -1.0, 0.0, 1e-30, np.nan]]
@@ -202,23 +202,22 @@ def test_fast_atan2_free_matches_lut():
     assert float(fast_atan2_free(jnp.float32(np.nan), jnp.float32(np.nan))) == 0.0
 
 
-def test_freq_mod_pair_fast_matches_exact():
-    """Two-level f32 prefix VCO == f64 parity VCO within f32 phase noise,
-    including chunked phase continuity."""
-    from sdrmodem_tpu.dsp.elementwise import freq_mod_pair_fast, freq_mod_stream_pair
+def test_freq_mod_stream_pair_chunked_matches_complex():
+    """The pair VCO == the complex VCO, including chunked phase
+    continuity and batched lanes (the server TX shape)."""
+    from sdrmodem.dsp.elementwise import freq_mod_stream, freq_mod_stream_pair
 
     x = RNG.standard_normal(10_000).astype(np.float32)
-    ie, qe, pe = freq_mod_stream_pair(jnp.asarray(x), 1.636, exact=True)
-    i1, q1, p1 = freq_mod_pair_fast(jnp.asarray(x[:4096]), 1.636)
-    i2, q2, p2 = freq_mod_pair_fast(jnp.asarray(x[4096:]), 1.636, p1)
+    ref, pe = freq_mod_stream(jnp.asarray(x), 1.636)
+    i1, q1, p1 = freq_mod_stream_pair(jnp.asarray(x[:4096]), 1.636)
+    i2, q2, p2 = freq_mod_stream_pair(jnp.asarray(x[4096:]), 1.636, p1)
     i = np.concatenate([np.asarray(i1), np.asarray(i2)])
     q = np.concatenate([np.asarray(q1), np.asarray(q2)])
-    np.testing.assert_allclose(i, np.asarray(ie), atol=5e-4)
-    np.testing.assert_allclose(q, np.asarray(qe), atol=5e-4)
+    np.testing.assert_allclose(i, np.asarray(ref).real, atol=5e-4)
+    np.testing.assert_allclose(q, np.asarray(ref).imag, atol=5e-4)
     assert abs(float(p2) - float(pe)) < 1e-3
-    # batched lanes too (the server TX shape)
     xb = RNG.standard_normal((3, 2048)).astype(np.float32)
-    ib, qb, pb = freq_mod_pair_fast(jnp.asarray(xb), 0.7)
-    ieb, qeb, peb = freq_mod_stream_pair(jnp.asarray(xb), 0.7, exact=True)
-    np.testing.assert_allclose(np.asarray(ib), np.asarray(ieb), atol=5e-4)
+    ib, qb, pb = freq_mod_stream_pair(jnp.asarray(xb), 0.7)
+    refb, peb = freq_mod_stream(jnp.asarray(xb), 0.7)
+    np.testing.assert_allclose(np.asarray(ib), np.asarray(refb).real, atol=5e-4)
     np.testing.assert_allclose(np.asarray(pb), np.asarray(peb), atol=1e-3)

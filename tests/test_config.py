@@ -3,7 +3,7 @@
 
 import pytest
 
-from sdrmodem_tpu.server.config import ConfigError, RxSdrType, ServerConfig, TxSdrType
+from sdrmodem.server.config import ConfigError, RxSdrType, ServerConfig, TxSdrType
 
 
 def test_full_config(resources_dir):

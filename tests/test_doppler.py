@@ -5,7 +5,7 @@ the 47000/95000 variants only change the allocated max buffer)."""
 import numpy as np
 import pytest
 
-from sdrmodem_tpu.dsp.doppler import Doppler
+from sdrmodem.dsp.doppler import Doppler
 
 TLE = [
     "LUCKY-7",
@@ -67,7 +67,7 @@ def _device_mix_stream(d, iq, chunk, direction):
     (device_segments) + nco_mix_pair_tm, one lane."""
     import jax.numpy as jnp
 
-    from sdrmodem_tpu.dsp.elementwise import nco_mix_pair_tm
+    from sdrmodem.dsp.elementwise import nco_mix_pair_tm
 
     out = []
     for i in range(0, len(iq), chunk):
@@ -91,7 +91,7 @@ def _device_mix_stream(d, iq, chunk, direction):
     "golden", ["lucky7.expected.cf32", "lucky7.expected.47000.cf32", "lucky7.expected.95000.cf32"]
 )
 def test_device_doppler_matches_goldens(resources_dir, golden):
-    """The device-side NCO (piecewise-linear phase rows applied on-TPU
+    """The device-side NCO (piecewise-linear phase rows applied on-device
     inside the batched step) reproduces the reference goldens just like
     the host mix — same segments, same f32 increments, same phase carry."""
     iq = np.fromfile(resources_dir / "lucky7.cf32", dtype=np.complex64)
@@ -107,8 +107,8 @@ def test_device_doppler_batched_full_path(resources_dir):
     rides along and must pass through bit-identically."""
     import jax.numpy as jnp
 
-    from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig
-    from sdrmodem_tpu.dsp.pipeline import DemodPipeline
+    from sdrmodem.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem.dsp.pipeline import DemodPipeline
 
     iq = np.fromfile(resources_dir / "lucky7.cf32", dtype=np.complex64)
     pre = np.fromfile(resources_dir / "lucky7.expected.cf32", dtype=np.complex64)
@@ -165,7 +165,7 @@ def test_doppler_end_to_end_demod(resources_dir):
     (dsp_worker.c:65-76): raw pass recording to soft symbols."""
     import jax.numpy as jnp
 
-    from sdrmodem_tpu import FskDemodConfig, FskDemodulator
+    from sdrmodem import FskDemodConfig, FskDemodulator
 
     iq = np.fromfile(resources_dir / "lucky7.cf32", dtype=np.complex64)
     corrected = _stream(Doppler(**ARGS), iq, 2000, +1)

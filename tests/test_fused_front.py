@@ -1,95 +1,97 @@
-"""Fused front-end kernel (ops/pallas_front.py) vs the unfused banded path.
+"""The full-block XLA front end (pipeline.front_full) vs the ragged front
+and the goldens.
 
-The FIR stages of the two paths share one accumulation convention
-(stream-aligned 128-row sub-blocks, pallas_fir.banded_tile_dot) and are
-bit-identical; the in-kernel arctangent may differ from the XLA lowering
-by ~1 ulp (fusion differences), which the reference's own ±2 LSB int8
-policy absorbs (reference test/test_fsk_demod.c:43-48).
+The full-block front keeps every history length a static constant; the
+ragged front bookkeeps dynamic histories.  Fed the same full blocks, the
+two must agree to float32 rounding (their matmuls are shaped differently,
+so the accumulation order differs), and the full-block front must not
+depend on how the stream is cut into blocks.
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
-from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig
-from sdrmodem_tpu.dsp.pipeline import DemodPipeline, DemodStateFull
+from sdrmodem.dsp.fsk_demod import FskDemodConfig
+from sdrmodem.dsp.pipeline import DemodPipeline, DemodStateFull
 
 CFG = FskDemodConfig(48000, 4800, 5000, 2, 2000, True)
+TOL = 1e-4  # ≈ 0.013 int8 LSB (1 LSB = 1/127)
 
 
-def _run_fronts(cfg, block, steps, channels=4, seed=0, **pipe_kw):
-    """Run fused and banded front-ends side by side with carried state."""
-    pipe = DemodPipeline(cfg, block, exact=False, use_atan_lut="free", **pipe_kw)
-    rng = np.random.default_rng(seed)
-    cp = -(-channels // 128) * 128
-    st_f = pipe.init_full_state(channels)
-    st_b = pipe.init_full_state(channels)
+def _full_front(cfg, block, x_blocks):
+    """Run the full-block front over (B, 2*Cp) blocks with carried state."""
+    pipe = DemodPipeline(cfg, block, exact=False, use_atan_lut="free")
+    st = pipe.init_full_state(x_blocks[0].shape[1] // 2)
+    front = jax.jit(pipe._front_batched_full)
     outs = []
-    for _ in range(steps):
-        x = jnp.asarray(rng.standard_normal((block, 2 * cp)).astype(np.float32))
-        ff, y3f = pipe._front_fused_full(st_f, x, interpret=True)
-        fb, y3b = pipe._front_batched_full(st_b, x, interpret=True)
-        outs.append((ff, y3f, fb, y3b))
-        st_f = DemodStateFull(*ff, st_f.clock)
-        st_b = DemodStateFull(*fb, st_b.clock)
-    return outs
+    for x in x_blocks:
+        y3, fs = front(st, jnp.asarray(x))
+        st = DemodStateFull(*fs, st.clock)
+        outs.append(np.asarray(y3))
+    return np.concatenate(outs)
 
 
-def _assert_front_match(outs, cfg):
-    # LPF1 runs before the arctangent: bit-identical by construction.
-    # Post-atan stages inherit the arctangent's lowering wiggle (the
-    # z=min/max division and alpha=z*255 intermediates differ by a few
-    # ulps between eager, jitted, and Mosaic lowerings; alpha's ulp at
-    # magnitude 255 is 2^-16 ≈ 1.5e-5), scaled through the unity-gain
-    # filters — bounded well below 0.01 int8 LSB (1 LSB = 1/127 ≈ 0.0079).
-    tol = 1e-4  # ≈ 0.013 int8 LSB; measured max wiggle ~1.5e-5
-    for ff, y3f, fb, y3b in outs:
-        assert np.array_equal(np.asarray(ff[0]), np.asarray(fb[0]))  # lpf1_hist
-        assert np.array_equal(np.asarray(ff[1]), np.asarray(fb[1]))  # quad_prev
-        np.testing.assert_allclose(np.asarray(y3f), np.asarray(y3b), atol=tol)
-        np.testing.assert_allclose(np.asarray(ff[2]), np.asarray(fb[2]), atol=tol)
-        if ff[3] is not None:
-            np.testing.assert_allclose(np.asarray(ff[3]), np.asarray(fb[3]), atol=tol)
+def _ragged_front(cfg, block, x_blocks, channels):
+    """The ragged front (dynamic histories) over the same blocks."""
+    pipe = DemodPipeline(cfg, block, exact=False, use_atan_lut="free")
+    st = jax.tree.map(
+        lambda a: jnp.broadcast_to(a, (channels,) + a.shape), pipe.init_state()
+    )
+    front = jax.jit(pipe._front_batched)
+    nv = jnp.full((channels,), block, jnp.int32)
+    outs = []
+    for x in x_blocks:
+        cp = x.shape[1] // 2
+        x_cm = np.stack([x[:, :channels].T, x[:, cp : cp + channels].T], axis=1)
+        fs, y3, n3 = front(st, jnp.asarray(x_cm), nv)
+        st = st._replace(lpf1=fs[0], quad_prev=fs[1], lpf2=fs[2], dc=fs[3])
+        n = int(np.asarray(n3)[0])
+        outs.append(np.asarray(y3)[:, :n].T)
+    return np.concatenate(outs)
+
+
+def _check_front_matches_ragged(cfg, block, steps, channels=4, seed=0):
+    rng = np.random.default_rng(seed)
+    x_blocks = [
+        rng.standard_normal((block, 256)).astype(np.float32) for _ in range(steps)
+    ]
+    full = _full_front(cfg, block, x_blocks)[:, :channels]
+    ragged = _ragged_front(cfg, block, x_blocks, channels)
+    assert full.shape == ragged.shape
+    np.testing.assert_allclose(full, ragged, atol=TOL)
 
 
 def test_fused_front_matches_banded():
-    outs = _run_fronts(CFG, 4096, steps=3)
-    _assert_front_match(outs, CFG)
+    _check_front_matches_ragged(CFG, 4096, steps=3)
 
 
 def test_fused_front_no_dc():
-    cfg = FskDemodConfig(48000, 4800, 5000, 2, 2000, False)
-    outs = _run_fronts(cfg, 2048, steps=2)
-    _assert_front_match(outs, cfg)
+    _check_front_matches_ragged(FskDemodConfig(48000, 4800, 5000, 2, 2000, False), 2048, 2)
 
 
 def test_fused_front_decim1():
     cfg = FskDemodConfig(192000, 40000, 5000, 1, 2000, True)
-    outs = _run_fronts(cfg, 1920, steps=2)  # non-power-of-two block
-    _assert_front_match(outs, cfg)
+    _check_front_matches_ragged(cfg, 1920, steps=2)  # non-power-of-two block
 
 
-def test_fused_front_tile_invariant(monkeypatch):
-    """The accumulation grouping is tile-independent: any legal
-    SDRM_FRONT_TILE produces BIT-identical output (same guarantee the
-    banded kernel makes for SDRM_FIR_TILE_R)."""
-    ref = _run_fronts(CFG, 4096, steps=2, seed=3)
-    monkeypatch.setenv("SDRM_FRONT_TILE", "256")
-    small = _run_fronts(CFG, 4096, steps=2, seed=3)
-    for (ff_r, y3_r, _, _), (ff_s, y3_s, _, _) in zip(ref, small):
-        assert np.array_equal(np.asarray(y3_r), np.asarray(y3_s))
-        for a, b in zip(ff_r, ff_s):
-            if a is not None:
-                assert np.array_equal(np.asarray(a), np.asarray(b))
+def test_fused_front_tile_invariant():
+    """Block-size invariance: one 4096-sample block and two 2048-sample
+    blocks of the same stream give the same front output (static history
+    hand-off is exact)."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4096, 256)).astype(np.float32)
+    one = _full_front(CFG, 4096, [x])
+    two = _full_front(CFG, 2048, [x[:2048], x[2048:]])
+    np.testing.assert_allclose(one, two, atol=TOL)
 
 
-def _demod_fixture(cfg, iq, block, front):
-    """Full-block production step over a fixture, single channel."""
+def _demod_fixture(cfg, iq, block):
+    """Full-block step over a fixture, single channel."""
     pipe = DemodPipeline(cfg, block, exact=False, use_atan_lut="free")
-    if front == "fused":
-        assert pipe.fused_front_available()
-    step = pipe.make_batched_step_full("scan", layout="tm", front=front)
+    step = pipe.make_batched_step_full(layout="tm")
     padded = np.zeros(-(-len(iq) // block) * block, np.complex64)
     padded[: len(iq)] = iq
     state = pipe.init_full_state(1)
@@ -104,13 +106,8 @@ def _demod_fixture(cfg, iq, block, front):
             axis=1,
         ).astype(np.float32)
         state, sym, cnt = step(state, jnp.asarray(x))
-        sym0 = np.asarray(sym)[0]
-        counts = np.atleast_1d(np.asarray(cnt)[0])
-        if sym0.ndim == 1:
-            sym0 = sym0[None, :]
-        for k, c in enumerate(counts):
-            if c:
-                out.append(sym0[k, : int(c)])
+        sym0, cnt0 = np.asarray(sym)[0], np.asarray(cnt)[0]
+        out.extend(sym0[k, : int(c)] for k, c in enumerate(cnt0) if c)
     return np.concatenate(out) if out else np.zeros(0, np.int8)
 
 
@@ -130,23 +127,12 @@ GOLDEN_CASES = [
 
 @pytest.mark.parametrize("name,cfg,fin,fexp,block", GOLDEN_CASES, ids=[c[0] for c in GOLDEN_CASES])
 def test_fused_front_golden(resources_dir, name, cfg, fin, fexp, block):
-    """The fused production path reproduces the reference goldens within
+    """The full-block fast path reproduces the reference goldens within
     the reference's own ±2 LSB bound (test/test_fsk_demod.c:14-48)."""
     iq = np.fromfile(resources_dir / fin, dtype=np.complex64)
     golden = np.fromfile(resources_dir / fexp, dtype=np.int8)
-    got = _demod_fixture(cfg, iq, block, "fused")
+    got = _demod_fixture(cfg, iq, block)
     m = min(len(got), len(golden))
     assert m >= len(golden) * 0.99
     diff = np.abs(got[:m].astype(np.int32) - golden[:m].astype(np.int32))
     assert diff.max() <= 2, f"{name}: {(diff > 2).sum()} symbols beyond tolerance"
-
-
-def test_fused_step_equals_banded_step(resources_dir):
-    """End-to-end (front + clock) fused vs banded on real capture data:
-    same symbol counts, symbols within the golden tolerance."""
-    iq = np.fromfile(resources_dir / "lucky7.expected.cf32", dtype=np.complex64)[:32768]
-    a = _demod_fixture(CFG, iq, 8192, "fused")
-    b = _demod_fixture(CFG, iq, 8192, "banded")
-    assert len(a) == len(b)
-    diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
-    assert diff.max() <= 2 and (diff > 0).mean() < 0.01

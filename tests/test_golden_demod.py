@@ -10,7 +10,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from sdrmodem_tpu import FskDemodConfig, FskDemodulator, GfskModConfig, GfskModulator
+from sdrmodem import FskDemodConfig, FskDemodulator, GfskModConfig, GfskModulator
 
 CASES = [
     ("nusat", FskDemodConfig(192000, 40000, 5000, 1, 2000, True), "nusat.cf32", "processed.s8"),
@@ -92,7 +92,7 @@ def test_mod_demod_loopback():
     """TX → RX loopback recovers the transmitted bits (reference
     test_tcp_server.c test_file_data analog, 10 warm-up symbols skipped)."""
     fs, baud, dev = 48000, 9600, 5000
-    payload = np.frombuffer(b"hello sdr-modem tpu loopback!!!!" * 8, dtype=np.uint8)
+    payload = np.frombuffer(b"hello sdr-modem gpu loopback!!!!" * 8, dtype=np.uint8)
     mod = GfskModulator(GfskModConfig.from_radio(fs, baud, dev))
     iq, _ = mod.process(jnp.asarray(payload))
 

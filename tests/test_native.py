@@ -5,7 +5,7 @@ import threading
 import numpy as np
 import pytest
 
-from sdrmodem_tpu.utils import native
+from sdrmodem.utils import native
 
 RNG = np.random.default_rng(11)
 
@@ -127,7 +127,7 @@ def test_native_readahead_blocking_no_drops():
     (reference src/dsp_worker.c:176-179 + src/queue.c blocking put)."""
     import asyncio
 
-    from sdrmodem_tpu.devices.native_ingest import NativeReadAhead
+    from sdrmodem.devices.native_ingest import NativeReadAhead
 
     n, blk = 32, 256
     blocks = [
@@ -190,7 +190,7 @@ def test_native_readahead_lossy_drops_and_counts():
     (reference src/queue.c:124-128)."""
     import asyncio
 
-    from sdrmodem_tpu.devices.native_ingest import NativeReadAhead
+    from sdrmodem.devices.native_ingest import NativeReadAhead
 
     n, blk = 64, 256
     blocks = [np.full(blk, i, np.complex64) for i in range(n)]
@@ -228,9 +228,9 @@ def test_server_file_rx_uses_native_ingest(tmp_path):
     import asyncio
     import pathlib
 
-    from sdrmodem_tpu.server import wire
-    from sdrmodem_tpu.server.config import RxSdrType
-    from sdrmodem_tpu.server.tcp_server import SdrModemServer
+    from sdrmodem.server import wire
+    from sdrmodem.server.config import RxSdrType
+    from sdrmodem.server.tcp_server import SdrModemServer
 
     from tests.server_helpers import ModemClient
     from tests.test_server import make_config, rx_request
@@ -249,7 +249,7 @@ def test_server_file_rx_uses_native_ingest(tmp_path):
         )
         assert resp.status == wire.ResponseStatus.SUCCESS
         # the stream object must be the native wrapper
-        from sdrmodem_tpu.devices.native_ingest import NativeReadAhead
+        from sdrmodem.devices.native_ingest import NativeReadAhead
 
         assert any(
             isinstance(s.device, NativeReadAhead) for s in server.streams

@@ -6,10 +6,10 @@ import datetime as dt
 import numpy as np
 import pytest
 
-from sdrmodem_tpu.orbit.sdp4 import Sdp4
-from sdrmodem_tpu.orbit.sgp4 import Sgp4
-from sdrmodem_tpu.orbit.timeutil import calendar_date, julian_date, theta_g_jd
-from sdrmodem_tpu.orbit.tle import TleError, parse_tle
+from sdrmodem.orbit.sdp4 import Sdp4
+from sdrmodem.orbit.sgp4 import Sgp4
+from sdrmodem.orbit.timeutil import calendar_date, julian_date, theta_g_jd
+from sdrmodem.orbit.tle import TleError, parse_tle
 
 SGP4_EXPECTED = [
     (0.0, 2328.97048951, -5995.22076416, 1719.97067261, 2.91207230, -0.98341546, -7.09081703),
@@ -79,7 +79,7 @@ def test_theta_g_jd_range():
 
 def test_solar_position_and_eclipse():
     # reference test_sgp4_001.c test_solar / test_eclipse
-    from sdrmodem_tpu.orbit.solar import sat_eclipsed, solar_position
+    from sdrmodem.orbit.solar import sat_eclipsed, solar_position
 
     x, y, z, w = solar_position(2458918.986678)
     assert abs(x - 146496240.579853) < 5.0  # km, low-precision ephemeris
@@ -101,9 +101,9 @@ def test_checkpoint_resume_demod(resources_dir):
     import jax
     import jax.numpy as jnp
 
-    from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig
-    from sdrmodem_tpu.dsp.pipeline import DemodPipeline
-    from sdrmodem_tpu.utils.checkpoint import load_state, save_state
+    from sdrmodem.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem.dsp.pipeline import DemodPipeline
+    from sdrmodem.utils.checkpoint import load_state, save_state
 
     iq = np.fromfile(resources_dir / "lucky7.expected.cf32", dtype=np.complex64)[:24576]
     pipe = DemodPipeline(FskDemodConfig(48000, 4800, 5000, 2, 2000, True), 8192, exact=False)
@@ -125,10 +125,10 @@ def test_checkpoint_resume_demod(resources_dir):
 
 
 def test_calculate_ra_dec_range():
-    from sdrmodem_tpu.orbit.observer import Geodetic, calculate_ra_dec
-    from sdrmodem_tpu.orbit.sgp4 import Sgp4
-    from sdrmodem_tpu.orbit.timeutil import julian_date
-    from sdrmodem_tpu.orbit.tle import parse_tle
+    from sdrmodem.orbit.observer import Geodetic, calculate_ra_dec
+    from sdrmodem.orbit.sgp4 import Sgp4
+    from sdrmodem.orbit.timeutil import julian_date
+    from sdrmodem.orbit.tle import parse_tle
 
     tle = parse_tle([
         "LUCKY-7",

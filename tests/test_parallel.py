@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig, FskDemodulator
-from sdrmodem_tpu.parallel.channels import ShardedChannelDemod
-from sdrmodem_tpu.parallel.time_shard import demod_time_sharded
+from sdrmodem.dsp.fsk_demod import FskDemodConfig, FskDemodulator
+from sdrmodem.parallel.channels import ShardedChannelDemod
+from sdrmodem.parallel.time_shard import demod_time_sharded
 
 CFG = FskDemodConfig(48000, 4800, 5000, 2, 2000, True)
 
@@ -80,8 +80,8 @@ def test_channel_sharded_full_path(resources_dir):
     """The production full-block fast path under shard_map: every shard
     runs its local 128-lane batched step; output matches the unsharded
     full-block step exactly (same program per lane, no collectives)."""
-    from sdrmodem_tpu.dsp.pipeline import DemodPipeline
-    from sdrmodem_tpu.parallel.channels import ShardedChannelDemodFull
+    from sdrmodem.dsp.pipeline import DemodPipeline
+    from sdrmodem.parallel.channels import ShardedChannelDemodFull
 
     iq = np.fromfile(resources_dir / "lucky7.expected.cf32", dtype=np.complex64)[:8192]
     channels = 16
@@ -113,21 +113,19 @@ def test_channel_sharded_full_path(resources_dir):
     np.testing.assert_array_equal(lane0, ref)
 
 
-def test_channel_sharded_production_kernels(resources_dir, monkeypatch):
-    """The EXACT production kernel stack — the fused front+clock step
-    (pallas clock backend) — under shard_map, interpret mode on the CPU
-    mesh: symbol-exact vs the same kernels unsharded (the reference's
-    integration tests run the code paths production runs,
-    test_tcp_server.c:482-563)."""
-    from sdrmodem_tpu.dsp.pipeline import DemodPipeline
-    from sdrmodem_tpu.parallel.channels import ShardedChannelDemodFull
+def test_channel_sharded_production_kernels(resources_dir):
+    """The GPU's kernel stack — XLA front end + the clock kernel — under
+    shard_map, interpret mode on the CPU mesh: symbol-exact vs the same
+    step unsharded (the reference's integration tests run the code paths
+    production runs, test_tcp_server.c:482-563)."""
+    from sdrmodem.dsp.pipeline import DemodPipeline
+    from sdrmodem.parallel.channels import ShardedChannelDemodFull
 
-    monkeypatch.setenv("SDRM_STEP_CHUNK", "256")
     iq = np.fromfile(resources_dir / "lucky7.expected.cf32", dtype=np.complex64)[:2048]
     channels = 16
     mesh = _mesh("channel")
     sharded = ShardedChannelDemodFull(
-        CFG, 2048, channels, mesh, clock_backend="pallas"
+        CFG, 2048, channels, mesh, clock_backend="kernel"
     )
 
     def collect(symbols, counts, lane):
@@ -146,8 +144,7 @@ def test_channel_sharded_production_kernels(resources_dir, monkeypatch):
         np.testing.assert_array_equal(collect(symbols, counts, c), lane0)
 
     pipe = DemodPipeline(CFG, 2048, exact=False, use_atan_lut="free")
-    assert pipe.fused_step_available(128)
-    step = pipe.make_batched_step_full("pallas", front="step")
+    step = pipe.make_batched_step_full("kernel")
     st = pipe.init_full_state(1)
     x = np.stack([iq.real, iq.imag])[None].astype(np.float32)
     st, ref_sym, ref_cnt = step(st, jnp.asarray(x))
@@ -156,9 +153,9 @@ def test_channel_sharded_production_kernels(resources_dir, monkeypatch):
 
 
 def test_pipelined_streams_equal_unsharded_full_block(resources_dir):
-    """PRODUCTION multi-device path: 8 independent streams, each stream's
-    time axis sharded over 8 devices in the skewed systolic layout, front
-    end on the banded-MXU kernels with ring-halo state, clock rotation
+    """Multi-device path: 8 independent streams, each stream's time axis
+    sharded over 8 devices in the skewed systolic layout, front end with
+    ring-halo state, clock rotation
     with ppermuted suffix-carry.  Every stream's symbols must equal
     feeding that stream alone through the single-chip full-block step
     with block = N/D: same symbol count (the M&M clock walks the same
@@ -167,8 +164,8 @@ def test_pipelined_streams_equal_unsharded_full_block(resources_dir):
     shard_map program with different fusion/FMA choices than the plain
     one, so 1-ulp float wiggle at int8 rounding boundaries is expected —
     the same wiggle the reference accepts across machines)."""
-    from sdrmodem_tpu.dsp.pipeline import DemodPipeline
-    from sdrmodem_tpu.parallel.time_shard import demod_pipelined
+    from sdrmodem.dsp.pipeline import DemodPipeline
+    from sdrmodem.parallel.time_shard import demod_pipelined
 
     n_dev, n = 8, 32768
     iq = np.fromfile(resources_dir / "lucky7.expected.cf32", dtype=np.complex64)
@@ -210,7 +207,7 @@ def test_pipelined_streams_equal_unsharded_full_block(resources_dir):
 
 
 def test_pipeline_schedule_is_bubble_free():
-    from sdrmodem_tpu.parallel.time_shard import pipeline_schedule_report
+    from sdrmodem.parallel.time_shard import pipeline_schedule_report
 
     rep = pipeline_schedule_report(8, 1 << 20, CFG)
     assert rep["idle_device_rounds"] == 0
@@ -222,7 +219,7 @@ def test_pipeline_schedule_is_bubble_free():
 def test_grid_sharded_channels_by_time(resources_dir):
     """2-D mesh: 2 channel shards x 4 time shards; every channel's output
     matches the unsharded whole-stream demodulator."""
-    from sdrmodem_tpu.parallel.time_shard import demod_grid_sharded
+    from sdrmodem.parallel.time_shard import demod_grid_sharded
 
     iq = np.fromfile(resources_dir / "lucky7.expected.cf32", dtype=np.complex64)[:32768]
     channels = 4
@@ -244,8 +241,8 @@ def test_pipelined_lane_packing_k_streams(resources_dir):
     """S > D: k = S/D streams pack per ring group, filling the vector
     lanes (the round-3 path wasted 94% of lanes at S == D).  Every
     stream must still equal its solo single-chip full-block run."""
-    from sdrmodem_tpu.dsp.pipeline import DemodPipeline
-    from sdrmodem_tpu.parallel.time_shard import demod_pipelined
+    from sdrmodem.dsp.pipeline import DemodPipeline
+    from sdrmodem.parallel.time_shard import demod_pipelined
 
     n_dev, n, s_streams = 4, 16384, 10  # k = ceil(10/4) = 3, 2 pad lanes
     iq = np.fromfile(resources_dir / "lucky7.expected.cf32", dtype=np.complex64)
@@ -290,8 +287,8 @@ def test_pipelined_doppler_golden(resources_dir):
     capture with per-stream device Doppler tables (skewed like the data)
     demodulates to the lucky7 golden symbols on the virtual mesh; a
     doppler-free lane of the pre-corrected capture rides along."""
-    from sdrmodem_tpu.dsp.doppler import Doppler
-    from sdrmodem_tpu.parallel.time_shard import demod_pipelined
+    from sdrmodem.dsp.doppler import Doppler
+    from sdrmodem.parallel.time_shard import demod_pipelined
     from tests.test_doppler import ARGS
 
     n_dev = 4
@@ -317,8 +314,8 @@ def test_pipelined_doppler_golden(resources_dir):
 
 def test_grid_sharded_doppler(resources_dir):
     """Per-channel Doppler through the 2-D grid (channel x time)."""
-    from sdrmodem_tpu.dsp.doppler import Doppler
-    from sdrmodem_tpu.parallel.time_shard import demod_grid_sharded
+    from sdrmodem.dsp.doppler import Doppler
+    from sdrmodem.parallel.time_shard import demod_grid_sharded
     from tests.test_doppler import ARGS
 
     raw = np.fromfile(resources_dir / "lucky7.cf32", dtype=np.complex64)

@@ -6,8 +6,8 @@ import asyncio
 import numpy as np
 import pytest
 
-from sdrmodem_tpu.devices.iio_lib import IioError, IioLib
-from sdrmodem_tpu.devices.plutosdr import (
+from sdrmodem.devices.iio_lib import IioError, IioLib
+from sdrmodem.devices.plutosdr import (
     FIR_128_2,
     FIR_128_4,
     MIN_FIR_FILTER,

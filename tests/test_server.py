@@ -6,9 +6,9 @@ import asyncio
 import numpy as np
 import pytest
 
-from sdrmodem_tpu.server import wire
-from sdrmodem_tpu.server.config import RxSdrType, ServerConfig, TxSdrType
-from sdrmodem_tpu.server.tcp_server import SdrModemServer
+from sdrmodem.server import wire
+from sdrmodem.server.config import RxSdrType, ServerConfig, TxSdrType
+from sdrmodem.server.tcp_server import SdrModemServer
 
 from tests.server_helpers import MockSdrServer, ModemClient
 
@@ -305,8 +305,8 @@ def test_plutosdr_rx_e2e(tmp_path):
     transmitted bits; a second concurrent client hits the single-pluto-RX
     enforcement (RX_IS_BEING_USED), and a later client succeeds again
     after teardown (reference src/tcp_server.c:425-430)."""
-    from sdrmodem_tpu.dsp.gfsk_mod import GfskModConfig
-    from sdrmodem_tpu.dsp.streaming import StreamingGfskMod
+    from sdrmodem.dsp.gfsk_mod import GfskModConfig
+    from sdrmodem.dsp.streaming import StreamingGfskMod
 
     from tests.test_plutosdr import MockIioLib
 
@@ -570,13 +570,12 @@ def test_fast_lane_attach_race_gets_fresh_state(tmp_path):
 
     import jax
 
-    from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig
-    from sdrmodem_tpu.server.session import BatchedRxGroup
+    from sdrmodem.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem.server.session import BatchedRxGroup
 
     class Stub:
         doppler = None
         samples_in = 0
-        overflow_events = 0
         group = None
         lane = -1
 
@@ -664,13 +663,12 @@ def test_group_ingest_overlaps_device_step(tmp_path):
     reference src/queue.c:124-128, 168-200."""
     import threading
 
-    from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig
-    from sdrmodem_tpu.server.session import BatchedRxGroup
+    from sdrmodem.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem.server.session import BatchedRxGroup
 
     class Stub:
         doppler = None
         samples_in = 0
-        overflow_events = 0
         group = None
         lane = -1
 
@@ -731,13 +729,12 @@ def test_group_blocking_mode_backpressures_file_reader(tmp_path):
     blocking queue, src/dsp_worker.c:176-179)."""
     import threading
 
-    from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig
-    from sdrmodem_tpu.server.session import BatchedRxGroup
+    from sdrmodem.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem.server.session import BatchedRxGroup
 
     class Stub:
         doppler = None
         samples_in = 0
-        overflow_events = 0
         group = None
         lane = -1
 
@@ -790,7 +787,7 @@ def test_fast_emit_after_stop_is_noop(tmp_path):
     """stop()/stream-death closes a fast lane's writers; an in-flight step
     that snapshotted the lane must emit into a no-op, not a ValueError
     that would kill the stream reader for every client."""
-    from sdrmodem_tpu.server.session import RxSession
+    from sdrmodem.server.session import RxSession
 
     async def body():
         cfg = make_config(tmp_path, demod_mode="fast")
@@ -837,7 +834,7 @@ def test_rx_stream_demod_fast_mode(tmp_path, resources_dir):
         await mock.send_iq(iq)
         # 24576 samples = 6 full 4096-sample blocks -> ~2400 symbols
         expected = 2300
-        # first step includes the jit compile of the interpret-mode batched
+        # first step includes the jit compile of the batched
         # program — allow well past the helper's default 10 s
         d1 = np.frombuffer(await c1.read_stream(expected, timeout=90), dtype=np.int8)
         d2 = np.frombuffer(await c2.read_stream(expected, timeout=90), dtype=np.int8)
@@ -856,11 +853,11 @@ def test_rx_stream_demod_fast_mode(tmp_path, resources_dir):
 
 
 def test_observability_counters(tmp_path):
-    """SURVEY §5: running samples/s log lines, queue-drop and overflow
-    counters on the session."""
+    """SURVEY §5: running samples/s log lines and queue-drop counters on
+    the session."""
     import logging
 
-    from sdrmodem_tpu.utils.queue import BufferQueue
+    from sdrmodem.utils.queue import BufferQueue
 
     async def body():
         # lossy queue counts overwrites
@@ -870,7 +867,7 @@ def test_observability_counters(tmp_path):
         assert q.dropped == 3
 
         # session rate logging: force the interval to 0 so one call logs
-        from sdrmodem_tpu.server import session as session_mod
+        from sdrmodem.server import session as session_mod
 
         req = rx_request()
         cfg = make_config(tmp_path)
@@ -901,13 +898,12 @@ def test_group_mesh_shards_lanes_over_devices(tmp_path, monkeypatch, resources_d
     split across chips (128-lane granules), same symbols as unsharded."""
     import jax
 
-    from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig
-    from sdrmodem_tpu.server.session import BatchedRxGroup
+    from sdrmodem.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem.server.session import BatchedRxGroup
 
     class Stub:
         doppler = None
         samples_in = 0
-        overflow_events = 0
         group = None
         lane = -1
 

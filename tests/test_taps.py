@@ -5,7 +5,7 @@ import re
 import numpy as np
 import pytest
 
-from sdrmodem_tpu.dsp import taps as T
+from sdrmodem.dsp import taps as T
 
 # Golden from reference test/test_lpf_taps.c (Fs=8000, cutoff=1750, tw=500).
 LPF_GOLDEN = np.array(

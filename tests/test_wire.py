@@ -8,7 +8,7 @@ import sys
 
 import pytest
 
-from sdrmodem_tpu.server import wire
+from sdrmodem.server import wire
 
 
 def test_header_framing():
@@ -108,7 +108,7 @@ def test_fuzz_roundtrip_random_messages():
     trailing fields — proto2 forward compatibility)."""
     import numpy as np
 
-    from sdrmodem_tpu.server import wire as W
+    from sdrmodem.server import wire as W
 
     rng = np.random.default_rng(7)
     for _ in range(200):
@@ -166,7 +166,7 @@ def test_fuzz_decode_garbage_raises_not_crashes():
     """Arbitrary byte blobs must raise WireError (or parse), never crash."""
     import numpy as np
 
-    from sdrmodem_tpu.server import wire as W
+    from sdrmodem.server import wire as W
 
     rng = np.random.default_rng(11)
     for _ in range(300):

@@ -1,22 +1,22 @@
 #!/usr/bin/env python3
-"""On-device golden-parity artifact: replay the reference's demod fixtures
-through the PRODUCTION full-block TPU path and record per-fixture numbers.
+"""On-device golden parity: replay the reference's demod fixtures through
+the full-block fast path and record per-fixture numbers.
 
 The reference's acceptance bound is int8 soft symbols within +-2 LSB of the
-recorded goldens (/root/reference/test/test_fsk_demod.c:43-48, tolerance in
+recorded goldens (reference test/test_fsk_demod.c:43-48, tolerance in
 test/utils.c:156-161).  This tool measures, on whatever device JAX is
-running on (the real TPU in production), for each fixture:
+running on, for each fixture:
 
 - max_lsb_diff      — max |got - golden| over all symbols
 - mismatch_rate     — fraction of symbols with any difference
 - beyond_tol_rate   — fraction beyond the reference's +-2 LSB bound
 
-Usage: python3 tools/parity.py [--block 16384] [--out PARITY_TPU.json]
+Usage: python3 tools/parity.py [--block 16384] [--out parity.json] [--gate]
        (add --cpu to force the CPU backend for a local sanity run)
 
-The production path here is exactly the server fast mode: DemodPipeline
-make_batched_step_full with the Pallas clock kernel, float32 banded-matmul
-FIRs and the gather-free LUT arctangent (use_atan_lut="free").
+The path here is exactly the server fast mode: DemodPipeline
+make_batched_step_full with the platform's clock (ops/select.py), float32
+banded-matmul FIRs and the gather-free LUT arctangent (use_atan_lut="free").
 """
 
 from __future__ import annotations
@@ -31,12 +31,11 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-RESOURCES = pathlib.Path("/root/reference/test/resources")
-if not RESOURCES.exists():  # vendored byte-identical copies (tests/fixtures)
-    RESOURCES = pathlib.Path(__file__).resolve().parents[1] / "tests" / "fixtures"
+# vendored byte-identical copies of the reference's test/resources
+RESOURCES = pathlib.Path(__file__).resolve().parents[1] / "tests" / "fixtures"
 
 # (name, config args, input fixture, golden fixture) — mirrors
-# /root/reference/test/test_fsk_demod.c:52-80
+# reference test/test_fsk_demod.c:52-80
 CASES = [
     ("lucky7", (48000, 4800, 5000, 2, 2000, True), "lucky7.expected.cf32", "lucky7.expected.s8"),
     ("lucky7_nodc", (48000, 4800, 5000, 2, 2000, False), "lucky7.expected.cf32", "lucky7.expected.nodc.s8"),
@@ -44,26 +43,22 @@ CASES = [
     ("nan", (240000, 9600, 5000, 1, 2000, True), "inputnan.cf32", "nan.s8"),
 ]
 
-# Hardware-parity regression gate (production mode): the widest deviation
-# ever characterized per fixture, so future kernel changes cannot silently
-# widen a transient.  lucky7_nodc's 71-symbol TPU re-lock transient
-# (BASELINE.md round 4: beyond_tol_rate 0.00386, max 19 LSB, hard-decision
-# agreement 1.0) is the accepted ceiling; everything else must hold the
-# strict reference bound (test/test_fsk_demod.c:43-48).
+# Device-parity regression gate (fast mode): every fixture holds the
+# strict reference bound (test/test_fsk_demod.c:43-48) except lucky7_nodc,
+# whose characterised ceiling is a short re-lock transient (beyond_tol_rate
+# <= 0.005 with hard-decision agreement 1.0): without the DC blocker the
+# chaotic M&M loop can take a different, equally valid timing trajectory
+# through a marginal stretch when the clock loop is compiled with other
+# floating-point contraction than the reference's.
 #
-# Exact mode is gated strictly (beyond_tol_rate == 0 everywhere) on CPU —
-# where it is the deterministic golden-parity mode and passes 4/4.  On the
-# TPU, the round-5 measurement showed the lucky7_nodc transient is
-# byte-identical under exact mode too (same span 6319-6389, same max 19,
-# hard-decision 1.0): f64-accumulated FIRs do NOT pin the chaotic M&M
-# trajectory across backends, because the residual 1-ulp machine-dependence
-# lives in the backend's lowering of the clock loop itself (e.g. FMA
-# contraction), not in any front-end accumulation.  That is precisely the
-# cross-machine float variance the reference's ±2 LSB policy and
-# VOLK_GENERIC golden pinning exist to absorb
-# (test/test_fsk_demod.c:14-20, test/resources/run_tests.sh:8-10) — so on
-# non-CPU backends exact mode gates against the same characterized
-# ceilings as production.
+# Exact mode is gated strictly (beyond_tol_rate == 0 everywhere) on CPU,
+# where it is the deterministic golden-parity mode.  f64-accumulated FIRs
+# do not pin the chaotic M&M trajectory across backends — the residual
+# machine dependence lives in the lowering of the clock loop itself (FMA
+# contraction) — which is the cross-machine variance the reference's ±2
+# LSB policy and VOLK_GENERIC golden pinning absorb
+# (test/test_fsk_demod.c:14-20, test/resources/run_tests.sh:8-10); so on
+# other backends exact mode gates against the same ceilings as fast mode.
 GATE = {
     "lucky7": {"beyond_tol_rate": 0.0, "hard_decision_agreement": 1.0},
     "lucky7_nodc": {"beyond_tol_rate": 0.005, "hard_decision_agreement": 1.0},
@@ -104,11 +99,10 @@ def replay_fixture(cfg_args, fin: str, fexp: str, block: int):
 
     Returns (max_lsb_diff, mismatch_rate, beyond_tol_rate, n_symbols).
     """
-    import jax
     import jax.numpy as jnp
 
-    from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig
-    from sdrmodem_tpu.dsp.pipeline import DemodPipeline
+    from sdrmodem.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem.dsp.pipeline import DemodPipeline
 
     cfg = FskDemodConfig(*cfg_args)
     iq = np.fromfile(RESOURCES / fin, dtype=np.complex64)
@@ -117,8 +111,7 @@ def replay_fixture(cfg_args, fin: str, fexp: str, block: int):
     d = cfg.decimation
     blk = -(-block // d) * d
     pipe = DemodPipeline(cfg, blk, exact=False, use_atan_lut="free")
-    backend = "pallas" if jax.devices()[0].platform != "cpu" else "scan"
-    step = pipe.make_batched_step_full(backend)
+    step = pipe.make_batched_step_full()
     state = pipe.init_full_state(1)
 
     n = len(iq)
@@ -143,11 +136,9 @@ def replay_fixture_exact(cfg_args, fin: str, fexp: str, block: int = 16384):
     ragged pipeline with float64-accumulated FIR dot products and the
     gather-LUT arctangent (``DemodPipeline(exact=True)``) — the
     machine-independence analog of the reference pinning VOLK_GENERIC for
-    its golden runs (/root/reference/test/resources/run_tests.sh:8-10).
-    IQ rides as float32 pairs (the TPU backend lowers no complex dtype);
-    f64 arithmetic is supported on-device."""
-    from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig
-    from sdrmodem_tpu.dsp.pipeline import DemodPipeline
+    its golden runs (reference test/resources/run_tests.sh:8-10)."""
+    from sdrmodem.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem.dsp.pipeline import DemodPipeline
 
     cfg = FskDemodConfig(*cfg_args)
     iq = np.fromfile(RESOURCES / fin, dtype=np.complex64)
@@ -217,9 +208,7 @@ def run(block: int = 16384, cases=CASES, names=None, modes=("production",)):
             results[name] = replay_fixture_exact(cfg_args, fin, fexp, block)
             results[name]["seconds"] = round(time.time() - t0, 2)
         report["fixtures_exact"] = results
-        # strict 4/4 on CPU; characterized ceilings on accelerator backends
-        # (see the GATE comment: the nodc transient is byte-identical under
-        # exact mode on the TPU — round-5 measurement)
+        # strict 4/4 on CPU; the characterised ceilings elsewhere (see GATE)
         gate_exact = (
             GATE_EXACT_CPU if jax.devices()[0].platform == "cpu" else GATE
         )
@@ -237,8 +226,8 @@ def main(argv=None):
         "--mode",
         default="production",
         choices=["production", "exact", "both"],
-        help="production = full-block Pallas path; exact = deterministic "
-        "f64-FIR whole-stream path (strict 4/4 gate)",
+        help="production = full-block fast path; exact = deterministic "
+        "f64-FIR whole-stream path (strict 4/4 gate on the CPU)",
     )
     parser.add_argument(
         "--gate",

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Micro-benchmark analog of reference test/perf_fsk_modem.c:
+"""Micro-benchmark analog of reference test/perf_fsk_modem.c, on one GPU:
 
 - gfsk_mod:  100 x 2048 bytes at Fs=19200, baud=9600, dev=5000, BT=0.5
-- fsk_demod: 100 x 4096 samples at Fs=48000, baud=4800, dev=5000, decim=2, DC on
+  (reference M1: 0.044 s = 74 Msamples/s produced)
+- fsk_demod: 100 x 4096 samples at Fs=48000, baud=4800, dev=5000, decim=2,
+  DC on (reference M1: 0.037 s = 11.0 Msamples/s)
 
-Run with default platform (TPU if available) or JAX_PLATFORMS=cpu.
+plus the batched shapes the server runs.  Every timing ends in
+``block_until_ready``.  Exits non-zero when JAX finds no GPU.
 """
 
 import pathlib
@@ -16,187 +19,84 @@ import numpy as np
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 
+def _time(fn, reps):
+    import jax
+
+    jax.block_until_ready(fn())  # compile
+    t0 = time.perf_counter()
+    out = None
+    for _ in range(reps):
+        out = fn()
+    jax.block_until_ready(out)
+    return time.perf_counter() - t0
+
+
 def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.devices()
-    except RuntimeError:
-        jax.config.update("jax_platforms", "cpu")
+    from sdrmodem import GfskModConfig, GfskModulator
+    from sdrmodem.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem.dsp.pipeline import DemodPipeline
+    from sdrmodem.dsp.streaming import StreamingGfskMod
+    from sdrmodem.ops.select import require_gpu
 
-    from sdrmodem_tpu import GfskModConfig, GfskModulator
-    from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig
-    from sdrmodem_tpu.dsp.pipeline import DemodPipeline
-
+    require_gpu()
+    print(f"device: {jax.devices()[0].device_kind} x {len(jax.devices())}")
     rng = np.random.default_rng(0)
+    cfg_tx = GfskModConfig.from_radio(19200, 9600, 5000)
+    mod = GfskModulator(cfg_tx)
 
-    # --- gfsk_mod (reference: 0.054 s generic / 0.044 s tuned on M1)
-    # pair path (I/Q float32): the TPU backend has no complex dtype
-    mod = GfskModulator(GfskModConfig.from_radio(19200, 9600, 5000))
-    data = jnp.asarray(rng.integers(0, 255, 2048).astype(np.uint8))
-    interpret = jax.devices()[0].platform == "cpu"
-
-    def bench_tx(name, step):
-        i, q = step(data)  # compile
-        float(jnp.sum(i))
-        t0 = time.perf_counter()
-        out = None
-        for _ in range(100):
-            out = step(data)
-        float(jnp.sum(out[0]))
-        dt = time.perf_counter() - t0
-        out_samples = 100 * 2048 * 8 * 2
-        print(f"gfsk_mod {name}: 100 x 2048 bytes in {dt:.6f} s "
-              f"({out_samples/dt/1e6:.1f} Msamples/s produced) "
-              f"[reference M1: 0.044 s = 74 Msamples/s]")
-        return dt
-
-    bench_tx("xla  ", jax.jit(lambda d: mod.process_pair(d)[:2]))
-    # production fused-kernel path (ops/pallas_tx.py): the whole chain in
-    # one Mosaic program — the XLA chain is dispatch-bound on tiny blocks
-    bench_tx(
-        "fused",
-        jax.jit(lambda d: mod.process_pair_kernel(d, interpret=interpret)[:2]),
-    )
-
-    # same single stream, full-size TxData messages: the wire protocol
-    # caps messages at 32 KiB (reference src/api_utils.c:8), and the
-    # server runs ONE fused call per TxData — at 2048-byte messages the
-    # per-dispatch floor of the backend dominates, at 25600-byte messages
-    # the stream sustains its real single-client rate (8 messages here
-    # carry the same 204800 bytes as the 100x2048 reference shape)
-    data_big = jnp.asarray(rng.integers(0, 255, 25600).astype(np.uint8))
-    step_big = jax.jit(lambda d: mod.process_pair_kernel(d, interpret=interpret)[:2])
-    ib, qb = step_big(data_big)
-    float(jnp.sum(ib))
+    # --- gfsk_mod, the reference's shape: one stream, 100 messages
+    msgs = [rng.integers(0, 255, 2048).astype(np.uint8) for _ in range(100)]
+    tx = StreamingGfskMod(cfg_tx)
+    tx.process(msgs[0])  # compile
     t0 = time.perf_counter()
-    out = None
-    for _ in range(8):
-        out = step_big(data_big)
-    float(jnp.sum(out[0]))
-    dt = time.perf_counter() - t0
-    n_out = 8 * 25600 * 8 * 2
-    print(f"gfsk_mod fused, 25600-B TxData: 8 msgs ({n_out/1e6:.2f} Msamples) in "
-          f"{dt:.6f} s ({n_out/dt/1e6:.1f} Msamples/s produced, single stream)")
-
-    # sustained single stream, FORCED sequential: the carried VCO phase
-    # threads through every call, so no iteration can be elided or
-    # reordered — genuine phase-continuous streaming of one client
-    step_thr = jax.jit(
-        lambda d, p: mod.process_pair_kernel(d, phase0=p, interpret=interpret)
-    )
-    i0, q0, ph = step_thr(data_big, jnp.float32(0.0))
-    float(jnp.sum(i0))
-    iters = 16
-    t0 = time.perf_counter()
-    ph = jnp.float32(0.0)
-    out = None
-    for _ in range(iters):
-        out = step_thr(data_big, ph)
-        ph = out[2]
-    float(jnp.sum(out[0]) + out[2])
-    dt = time.perf_counter() - t0
-    n_out = iters * 25600 * 8 * 2
-    print(f"gfsk_mod fused, sustained stream ({iters} x 25600-B TxData, "
-          f"phase-threaded): {n_out/1e6:.2f} Msamples in {dt:.6f} s "
-          f"({n_out/dt/1e6:.1f} Msamples/s, single stream)")
-
-    # --- the server's COALESCED path at the reference's own message
-    # granularity: 100 x 2048-B TxData arrive pipelined, the TX control
-    # loop drains queued messages into bursts (tcp_server.py) and the
-    # modulator sub-dispatches at 32 KiB (StreamingGfskMod
-    # MAX_DISPATCH_BYTES) — one fused call per 16 messages instead of per
-    # message, with the carried VCO phase threading every call
-    group_msgs, n_groups, rem_msgs = 16, 6, 4  # 6*16 + 4 = 100 messages
-    data16 = jnp.asarray(rng.integers(0, 255, group_msgs * 2048).astype(np.uint8))
-    data4 = jnp.asarray(rng.integers(0, 255, rem_msgs * 2048).astype(np.uint8))
-    step_c = jax.jit(
-        lambda d, p: mod.process_pair_kernel(d, phase0=p, interpret=interpret)
-    )
-    o = step_c(data16, jnp.float32(0.0))
-    float(jnp.sum(o[0]))
-    o = step_c(data4, o[2])
-    float(jnp.sum(o[0]))
-    t0 = time.perf_counter()
-    ph = jnp.float32(0.0)
-    out = None
-    for _ in range(n_groups):
-        out = step_c(data16, ph)
-        ph = out[2]
-    out = step_c(data4, ph)
-    float(jnp.sum(out[0]) + out[2])
+    for m in msgs:
+        tx.process(m)
     dt = time.perf_counter() - t0
     n_out = 100 * 2048 * 8 * 2
-    print(f"gfsk_mod fused, COALESCED 100 x 2048-B TxData ({n_groups} x "
-          f"{group_msgs}-msg bursts + {rem_msgs}): {n_out/1e6:.2f} Msamples in "
-          f"{dt:.6f} s ({n_out/dt/1e6:.1f} Msamples/s, single stream) "
-          f"[reference M1: 74 Msamples/s]")
+    print(f"gfsk_mod streaming: 100 x 2048 bytes in {dt:.6f} s "
+          f"({n_out / dt / 1e6:.1f} Msamples/s produced, host round trip per message)")
 
-    # --- gfsk_mod, production shape: 128 channels batched per dispatch
+    # --- gfsk_mod, 128 streams batched per dispatch
     channels = 128
     datab = jnp.asarray(rng.integers(0, 255, (channels, 2048)).astype(np.uint8))
+    stepb = jax.jit(lambda d: mod.process_pair(d)[:2])
+    dt = _time(lambda: stepb(datab), 20)
+    n_out = 20 * channels * 2048 * 8 * 2
+    print(f"gfsk_mod batched: 20 x {channels}ch x 2048 bytes in {dt:.6f} s "
+          f"({n_out / dt / 1e6:.1f} Msamples/s produced)")
 
-    def bench_txb(name, stepb):
-        ib, qb = stepb(datab)
-        float(jnp.sum(ib))
-        t0 = time.perf_counter()
-        outb = None
-        for _ in range(20):
-            outb = stepb(datab)
-        float(jnp.sum(outb[0]))
-        dt = time.perf_counter() - t0
-        outb_samples = 20 * channels * 2048 * 8 * 2
-        print(f"gfsk_mod {name}: 20 x {channels}ch x 2048 bytes in {dt:.6f} s "
-              f"({outb_samples/dt/1e6:.1f} Msamples/s produced, batched)")
-
-    bench_txb("xla  ", jax.jit(lambda d: mod.process_pair(d)[:2]))
-    bench_txb(
-        "fused",
-        jax.jit(lambda d: mod.process_pair_kernel(d, interpret=interpret)[:2]),
-    )
-
-    # --- fsk_demod
-    pipe = DemodPipeline(FskDemodConfig(48000, 4800, 5000, 2, 2000, True), 4096, exact=False, use_atan_lut="free")
-    iq = rng.standard_normal((2, 4096)).astype(np.float32)
-    x = jnp.asarray(iq)
+    # --- fsk_demod, the reference's shape: one lane, 4096-sample blocks
+    cfg = FskDemodConfig(48000, 4800, 5000, 2, 2000, True)
+    pipe = DemodPipeline(cfg, 4096, exact=False, use_atan_lut="free")
+    x = jnp.asarray(rng.standard_normal((2, 4096)).astype(np.float32))
     n = jnp.int32(4096)
-    state = pipe.init_state()
-    state, sym, cnt = pipe._step(state, x, n)
-    int(cnt)  # compile+force
-    t0 = time.perf_counter()
-    s = state
-    for _ in range(100):
-        s, sym, cnt = pipe._step(s, x, n)
-    int(cnt)
-    demod_dt = time.perf_counter() - t0
-    print(f"fsk_demod: 100 x 4096 samples in {demod_dt:.6f} s "
-          f"({100*4096/demod_dt/1e6:.1f} Msamples/s, single lane = "
-          f"per-dispatch latency bound) "
-          f"[reference M1: 0.037 s = 11.0 Msamples/s]")
+    state = [pipe.init_state()]
 
-    # --- fsk_demod, production shape (the bench.py headline): 128 channels
-    # x 64k samples through the full-block time-major Pallas path
+    def one():
+        state[0], _, cnt = pipe._step(state[0], x, n)
+        return cnt
+
+    dt = _time(one, 100)
+    print(f"fsk_demod: 100 x 4096 samples in {dt:.6f} s "
+          f"({100 * 4096 / dt / 1e6:.1f} Msamples/s, single lane)")
+
+    # --- fsk_demod, batched full-block step
     channels, block, iters = 128, 65536, 6
-    pipef = DemodPipeline(
-        FskDemodConfig(48000, 4800, 5000, 2, 2000, True), block, exact=False,
-        use_atan_lut="free",  # gather-free LUT: reference semantics at VPU cost
-    )
-    stepf = pipef.make_batched_step_full(
-        "pallas" if jax.devices()[0].platform != "cpu" else "scan"
-    )
-    statef = pipef.init_full_state(channels)
+    pipef = DemodPipeline(cfg, block, exact=False, use_atan_lut="free")
+    stepf = pipef.make_batched_step_full()
+    statef = [pipef.init_full_state(channels)]
     xf = jnp.asarray(rng.standard_normal((channels, 2, block)).astype(np.float32))
-    statef, sym, cnt = stepf(statef, xf)
-    int(np.asarray(cnt).sum())
-    t0 = time.perf_counter()
-    s = statef
-    for _ in range(iters):
-        s, sym, cnt = stepf(s, xf)
-    int(np.asarray(cnt).sum())
-    fast_dt = time.perf_counter() - t0
-    print(f"fsk_demod: {iters} x {channels}ch x {block} samples in {fast_dt:.6f} s "
-          f"({iters*channels*block/fast_dt/1e6:.1f} Msamples/s, batched full path)")
+
+    def full():
+        statef[0], _, cnt = stepf(statef[0], xf)
+        return cnt
+
+    dt = _time(full, iters)
+    print(f"fsk_demod: {iters} x {channels}ch x {block} samples in {dt:.6f} s "
+          f"({iters * channels * block / dt / 1e6:.1f} Msamples/s, batched full path)")
 
 
 if __name__ == "__main__":

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Capture a jax.profiler trace of the production demod step.
+"""Capture a jax.profiler trace of the full-block demod step on the GPU.
 
 SURVEY.md §5: the reference's only profiling is a micro-benchmark with
-commented timings (test/perf_fsk_modem.c); the TPU build gets real traces.
+commented timings (test/perf_fsk_modem.c); this build gets device traces.
 Writes a TensorBoard-compatible trace directory; view with
-``tensorboard --logdir <out>`` or xprof.
+``tensorboard --logdir <out>`` or read it with
+``jax.profiler.ProfileData.from_file``.
 
-Usage: python3 tools/trace.py [--out /tmp/sdrm-trace] [--block 65536]
+Usage: python3 tools/trace.py [--out traces/step] [--block 65536]
                               [--channels 128] [--steps 4]
 """
 
@@ -21,7 +22,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
-    parser.add_argument("--out", default="/tmp/sdrm-trace")
+    parser.add_argument("--out", default="traces/step")
     parser.add_argument("--block", type=int, default=65536)
     parser.add_argument("--channels", type=int, default=128)
     parser.add_argument("--steps", type=int, default=4)
@@ -31,19 +32,14 @@ def main(argv=None):
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.devices()
-    except RuntimeError:
-        jax.config.update("jax_platforms", "cpu")
+    from sdrmodem.dsp.fsk_demod import FskDemodConfig
+    from sdrmodem.dsp.pipeline import DemodPipeline
+    from sdrmodem.ops.select import require_gpu
 
-    from sdrmodem_tpu.dsp.fsk_demod import FskDemodConfig
-    from sdrmodem_tpu.dsp.pipeline import DemodPipeline
-
+    require_gpu()
     cfg = FskDemodConfig(48000, 4800, 5000, 2, 2000, True)
     pipe = DemodPipeline(cfg, args.block, exact=False, use_atan_lut="free")
-    step = pipe.make_batched_step_full(
-        "pallas" if jax.devices()[0].platform != "cpu" else "scan"
-    )
+    step = pipe.make_batched_step_full()
     state = pipe.init_full_state(args.channels)
     rng = np.random.default_rng(0)
     x = jnp.asarray(
